@@ -12,7 +12,7 @@ import time
 
 from .config import Config, load_yaml_config
 
-USAGE = """kasa_tpu -- TPU-native kASA-compatible metagenomic classifier
+USAGE = """kasa_tpu -- kASA-compatible metagenomic classifier on JAX
 Modes: generateCF build identify identify_multiple update delete shrink
        merge getFrequency redundancy trie half checkContentFile translate
 Flags mirror the reference kASA binary (see README)."""
@@ -159,8 +159,9 @@ def parse_args(argv: list[str]) -> Config:
         elif p == "--visualize":
             cfg.visualize = True
         elif p == "--engine":
-            # kasa_tpu extension: tpu (CLI identify default: device
-            # kernel, same counts, scores up to float order) | exact
+            # kasa_tpu extension: tpu (CLI identify default: the
+            # accelerator kernel, same counts, scores up to float
+            # order) | exact
             # (bit parity with the reference binary) | join (legacy)
             cfg.engine = nxt()
             cfg.engine_explicit = True

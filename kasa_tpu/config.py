@@ -38,7 +38,7 @@ class Config:
     # flags
     verbose: bool = False       # -v
     translated: bool = False    # -z (protein input)
-    ram: bool = False           # -r (index fully in memory; we always do on TPU)
+    ram: bool = False           # -r (index fully in device memory)
     unique: bool = False        # -e
     sloppy: bool = False        # -j ("unfunny")
     six_frames: bool = False    # --six
@@ -74,11 +74,6 @@ class Config:
     coherence_threshold: float = 11.0  # --coherenceThreshold
     shrink_strategy: int = 2        # -s (main.cpp default when shrinking is 2)
     output_format: str = "json"     # --json/--jsonl/--tsv/--kraken
-
-    # TPU-specific knobs (new; no reference equivalent)
-    device_batch_kmers: int = 1 << 21   # windows per device batch
-    mesh_shape: tuple = ()              # () = single device
-    use_f64_counts: bool = True         # exact double profile accumulation
 
     @property
     def num_frames(self) -> int:

@@ -7,7 +7,7 @@ utils/uint128_t.hpp.  Prefix order == numeric order, so one sorted
 array serves every k in [minK, maxK] by right-shifting
 ``5*(highestK-k)`` (Compare.hpp:865-874).
 
-TPUs have no fast 64-bit integer datapath, so we re-represent a k-mer
+Device kernels work on 32-bit integer lanes, so we re-represent a k-mer
 as ``L = ceil(highestK/6)`` *limbs* of up to 6 letters (30 bits) held
 in int32:
 

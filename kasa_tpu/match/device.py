@@ -1,4 +1,4 @@
-"""Fully-jitted device classify kernel -- the TPU throughput path.
+"""Fully-jitted device classify kernel -- the classic throughput path.
 
 One compiled XLA program per (batch shape, index shape): run the
 fixed-iteration lexicographic binary search for every k in
@@ -18,7 +18,7 @@ merge-join (Compare.hpp:679-1069) with branchless vector ops:
 Two scoring lowerings, chosen by the static `dense_scores` flag:
 
   * dense (small species axis): base-tile hits become (M, S) one-hot
-    masks reduced per read block -- pure VPU work, no scatter.
+    masks reduced per read block -- elementwise work, no scatter.
     Requires the uniform read layout (row m -> read m//kmers_per_read).
   * scatter (large species axis): (read, taxon) cells are scatter-
     added into a flat (R*S,) vector; work is O(M*cap) independent of
@@ -42,7 +42,7 @@ from ..core import kmer
 from .join import DeviceIndex, weight
 
 # The first phase of every lookup resolves the leading letters of the
-# query against a DENSE prefix-offset table -- the TPU analogue of the
+# query against a DENSE prefix-offset table -- the device analogue of the
 # reference's trie (Trie.hpp:323 direct-lookup mode, which is exactly
 # offset[prefix] over the first 6 letters).  20 bits = 4 letters keeps
 # the table at 4 MB while cutting the global binary search down to a
@@ -188,7 +188,7 @@ def classify_batch(
     processed -- nothing is dropped, matching Compare.hpp:516-597).
 
     `dense_scores=True` (uniform layout required: query row m belongs
-    to read m // kmers_per_read) lowers the base tile to one-hot VPU
+    to read m // kmers_per_read) lowers the base tile to one-hot
     reductions + reshape segment-sums -- no scatter, which is fastest
     while S is small.  `dense_scores=False` scatter-adds flat
     (read*S + taxon) cells instead: O(M*cap) work independent of the
@@ -301,7 +301,7 @@ def classify_batch(
     # [a, b].  A nonempty group therefore shows q's k-prefix at pos or
     # pos-1; an empty one at neither.  This replaces the reference's
     # per-k binary searches (Compare.hpp:865-993) with two gathered
-    # index rows reused across all k levels -- per-k work is pure VPU.
+    # index rows reused across all k levels -- per-k work is elementwise.
     fullkey = (L == 2 and min_k >= 6)
     if fullkey:
         q1f = q_cols[1]
@@ -394,7 +394,7 @@ def classify_batch(
         if dense_scores:
             # one-hot reduction: hit[m, s] = taxon s is in query m's slot
             # list (a taxon appears at most once per group, so 'any'
-            # over the cap axis is exact).  All-dense VPU work; the
+            # over the cap axis is exact).  All-dense elementwise work; the
             # reshape turns the per-query matrix into per-read rows.
             hit = jnp.any((slot_tax[:, :, None] == species_iota) &
                           slot_ok[:, :, None], axis=1)           # (M, S)

@@ -1,9 +1,9 @@
-"""Production TPU engine for identify: one jit-compiled classify per
+"""Classic device engine for identify: one jit-compiled classify per
 (batch-bucket, index) shape, driven directly from the CLI pipeline.
 
-This is the throughput path the CLI selects with ``--engine tpu``
-(pipeline default stays "exact" for bit parity with the reference
-binary).  It wraps the flagship kernel (match/device.py classify_batch)
+This is the per-batch fallback of ``--engine tpu`` for workloads the
+turbo fast path does not cover (pipeline default stays "exact" for
+bit parity with the reference binary).  It wraps the flagship kernel (match/device.py classify_batch)
 behind the same per-batch interface as the parity engines:
 
   ingest -> encode -> [here] classify -> rank -> write
@@ -56,7 +56,7 @@ class TpuEngine:
     """Device-resident index + jitted classify for the CLI pipeline.
 
     `dense_max_s` selects the scoring lowering: up to that many species
-    rows the base tile uses dense one-hot reductions (pure VPU work,
+    rows the base tile uses dense one-hot reductions (elementwise work,
     fastest at small S); above it, flat scatter-adds whose cost is
     independent of S (the shape that survives S >= 10k).  Both are
     exact (match/device.py tail loop)."""

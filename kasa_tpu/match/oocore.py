@@ -1,6 +1,6 @@
 """Out-of-core identify: classify against indices larger than device
 (or host) memory by streaming limb0-run-aligned index chunks through
-the device, the TPU-native counterpart of the reference's disk-backed
+the device, the accelerator counterpart of the reference's disk-backed
 stxxl index handles (Compare.hpp:182-318; one stxxl vector per thread,
 trie-range-aligned work splits at Compare.hpp:3263-3283).
 
@@ -15,7 +15,7 @@ Design:
   * Per-chunk search/score tables (match/device.py StackedTables) are
     built once per run and spilled to a disk cache next to the index
     (``<idx>_oocache/``); classify streams them chunk by chunk into
-    HBM.  Host RAM holds one chunk's tables at a time.
+    device memory.  Host RAM holds one chunk's tables at a time.
   * All chunks are padded to identical shapes (entries to the chunk
     budget; per-level group tables to their per-chunk upper bounds:
     sum_g |taxa(g)| <= entries per level), so the jitted kernel

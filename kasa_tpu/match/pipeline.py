@@ -6,7 +6,7 @@ Orchestrates (mirroring CompareWithLib_partialSort, Compare.hpp:2733-3766):
                  ->  sort by k-mer (device or host-stable)
                  ->  match+score (exact engine match/exact.py for
                      bit-parity with the reference binary, or the fast
-                     TPU engine match/join.py)
+                     device engines match/turbo.py, match/join.py)
                  ->  per-read ranking (match/score.py)
                  ->  writers (host/output.py)
 
@@ -604,8 +604,8 @@ def identify_multiple(cfg: Config, engine: str | None = None):
     """identify_multiple mode (main.cpp:1118-1334): classify every file
     in a folder against one loaded index.  The reference parallelizes
     with a many-files-many-cores job shop; outputs are identical to
-    running identify per file, which is what we do (the TPU is already
-    saturated by one file's batches)."""
+    running identify per file, which is what we do (one file's batches
+    already keep the device busy)."""
     if not os.path.isdir(cfg.input):
         raise RuntimeError("identify_multiple requires a folder with multiple "
                            "files in it!")

@@ -584,7 +584,7 @@ class TieredTurboDispatch:
         # device-resident chunk cache: the compact r5 chunk layout is
         # ~28 B/entry vs the resident turbo's ~52, so indices too big
         # for RESIDENT tables (grp2 is the hog there) often still fit
-        # HBM in chunk form.  Chunks cache individually until the
+        # device memory in chunk form.  Chunks cache individually until the
         # budget share is spent (partial caching: resident chunks
         # upload once, the tail streams per mega-batch).
         from .fast import device_table_budget

@@ -1,14 +1,21 @@
 """ctypes bindings for the native loader (loader.cpp).
 
-The shared library is built lazily with g++ on first use and cached
-next to the source; every entry point degrades gracefully to None when
-no compiler is available, so the pure-Python paths keep working.
+The shared library is built with g++ on first use from the committed
+sources, into ``build/`` beside them (listed in ``.gitignore``).  Its
+file name carries a hash of the sources, the compiler flags and the
+host's CPU, so a library built for other sources or another CPU (it is
+compiled with -march=native) is never loaded: it is simply not the
+file this host looks for.  Every entry point degrades gracefully to
+None when no compiler is available, so the pure-Python paths keep
+working; ``lib_error()`` says why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -17,36 +24,82 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "loader.cpp"), os.path.join(_DIR, "writer.cpp"),
          os.path.join(_DIR, "sortidx.cpp"),
          os.path.join(_DIR, "buildenc.cpp")]
-_SO = os.path.join(_DIR, "_kasa_loader.so")
+BUILD_DIR = os.path.join(_DIR, "build")
+# -ffp-contract=off: the score/error arithmetic must round exactly like
+# the Python float32 path (no FMA fusion), or formatted floats drift by
+# an ulp
+_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
+          "-std=c++17"]
 _lib = None
 _tried = False
+_error = None
 
 
-def _build() -> bool:
-    # -ffp-contract=off: the score/error arithmetic must round exactly
-    # like the Python float32 path (no FMA fusion), or formatted floats
-    # drift by an ulp
-    cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
-           "-fPIC", "-std=c++17", *_SRCS, "-o", _SO, "-lz"]
+def host_cpu() -> str:
+    """What -march=native compiles for: the machine type plus the first
+    processor's model name and feature flags."""
+    ident = [platform.machine()]
     try:
-        return subprocess.run(cmd, capture_output=True).returncode == 0
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    ident.append(line.strip())
+                if not line.strip() and len(ident) > 1:
+                    break
     except OSError:
+        ident.append(platform.processor())
+    return "\n".join(ident)
+
+
+def build_key(srcs=_SRCS, cpu: str | None = None) -> str:
+    """Hash of the sources' bytes, the compiler flags and the CPU."""
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update((host_cpu() if cpu is None else cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    return os.path.join(BUILD_DIR, f"_kasa_loader-{build_key()}.so")
+
+
+def _build(so: str) -> bool:
+    global _error
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", *_FLAGS, *_SRCS, "-o", tmp, "-lz"]
+    try:
+        r = subprocess.run(cmd, capture_output=True)
+    except OSError as e:
+        _error = f"g++ not runnable: {e}"
         return False
+    if r.returncode != 0:
+        _error = "g++ failed: " + r.stderr.decode(errors="replace")[-2000:]
+        return False
+    os.replace(tmp, so)     # atomic: concurrent builders never see half
+    return True
+
+
+def lib_error() -> str | None:
+    """Why get_lib() returned None (None when it loaded)."""
+    return _error
 
 
 def get_lib():
     """The loaded library, building it on first call; None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, _error
     if _lib is not None or _tried:
         return _lib
     _tried = True
     try:
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < max(os.path.getmtime(s)
-                                               for s in _SRCS)):
-            if not _build():
-                return None
-        lib = ctypes.CDLL(_SO)
+        so = lib_path()
+        if not os.path.exists(so) and not _build(so):
+            return None
+        lib = ctypes.CDLL(so)
         lib.kasa_load_fastx.restype = ctypes.c_void_p
         lib.kasa_load_fastx.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
@@ -108,7 +161,8 @@ def get_lib():
         lib.kasa_buf_ptr.argtypes = [ctypes.c_void_p]
         lib.kasa_buf_free.argtypes = [ctypes.c_void_p]
         _lib = lib
-    except OSError:
+    except OSError as e:
+        _error = f"native library did not load: {e}"
         _lib = None
     return _lib
 

@@ -1,6 +1,6 @@
 // Native data loader: FASTA/FASTQ(.gz) record framing + sanitization.
 //
-// TPU-native counterpart of the reference's C++ ingest stack
+// Counterpart of the reference's C++ ingest stack
 // (FileReader, Utilities.hpp:449-550; gzstream, zlib/gzstream.cpp;
 // searchAndReplaceLettersOfRead, Read.hpp:657-675).  The Python layer
 // (host/fastx.py) calls this through ctypes and falls back to its pure

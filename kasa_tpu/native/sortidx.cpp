@@ -5,7 +5,7 @@
 // Build.hpp:309); numpy's stable argsort costs ~0.35 us/element on
 // this class of host (measured: 12 s for 33M u64), which made the
 // whole build 8x slower than the reference at the 1 GB tier (VERDICT
-// r3 weak #4).  This is the TPU-era equivalent of that native
+// r3 weak #4).  This is our equivalent of that native
 // component: one MSD counting-scatter pass over the top 16 key bits
 // (parallel histogram + disjoint writes), then cache-resident
 // per-bucket std::sort of (key, tax) packed into unsigned __int128 --

@@ -1,4 +1,4 @@
-// Native per-read rank + format for the throughput (TPU-engine) path.
+// Native per-read rank + format for the throughput (--engine tpu) path.
 //
 // Given the (R, S) float32 score matrix a classify batch produced, this
 // ranks every read's hits and emits the per-read output text in any of

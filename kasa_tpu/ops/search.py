@@ -2,7 +2,7 @@
 
 Replaces the reference's per-query ``std::lower_bound`` over stxxl
 ranges (Compare.hpp:824, 980) with a branchless fixed-iteration search
-that runs for every query in parallel on the VPU: log2(N) rounds of
+that runs for every query in parallel: log2(N) rounds of
 (gather, compare, select).  All compares are int32 limb compares.
 """
 

@@ -1,22 +1,21 @@
-"""Multi-host initialization + DCN-aware mesh construction.
+"""Multi-host initialization + mesh construction.
 
 The reference is strictly single-process (SURVEY §2.5: no inter-node
-communication of any kind); scaling beyond one host is new TPU-native
-design:
+communication of any kind); scaling beyond one host is new design:
 
   * every host runs the same program and calls ``init_distributed()``
-    (jax.distributed.initialize) -- coordinator discovery follows the
-    standard JAX env contract (``JAX_COORDINATOR_ADDRESS``/
-    ``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``) or the TPU-pod metadata
-    autodetection when no env is set;
-  * the mesh is laid out so the INDEX-PARALLEL axis ("ip") stays
-    inside each host's ICI domain (the index-shard psum is the hot
-    collective) while DATA-PARALLEL ("dp") spans hosts over DCN --
-    per-host ingest feeds the host-local dp slice and nothing but the
-    final per-read score rows ever crosses DCN;
+    (jax.distributed.initialize), configured by the standard JAX env
+    contract (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
+    ``JAX_PROCESS_ID``);
+  * the mesh keeps the INDEX-PARALLEL axis ("ip") inside each host,
+    whose cards reach each other all to all over NVLink (the
+    index-shard psum is the hot collective), while DATA-PARALLEL
+    ("dp") spans hosts over the network -- per-host ingest feeds the
+    host-local dp slice and nothing but the final per-read score rows
+    ever crosses between hosts;
   * host-side prefix routing (mesh.route_queries) means queries are
     placed directly on their owning shard's host feed, so there is no
-    all_to_all at all: the measured tradeoff vs broadcast+psum is in
+    all_to_all at all: the tradeoff vs broadcast+psum is in
     docs/parallel.md.
 """
 
@@ -38,16 +37,12 @@ def init_distributed() -> bool:
             num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
             process_id=int(os.environ["JAX_PROCESS_ID"]))
         return True
-    if os.environ.get("KASA_TPU_AUTODETECT_POD"):
-        # TPU pod runtime metadata path (no explicit coordinator)
-        jax.distributed.initialize()
-        return True
     return False
 
 
 def make_identify_mesh(ip: int | None = None, dp: int | None = None):
     """Device mesh (dp, ip) with "ip" innermost so the per-shard psum
-    rides ICI; across hosts, "dp" maps to whole processes (DCN).
+    stays inside one host; across hosts, "dp" maps to whole processes.
 
     Single-host: a plain reshape of local devices.  Multi-host: a
     hybrid mesh with dp spanning processes (each host holds complete
@@ -70,16 +65,13 @@ def make_identify_mesh(ip: int | None = None, dp: int | None = None):
         if ip > n_local or n_local % ip:
             raise ValueError(
                 "index-parallel axis must divide the per-host device count "
-                "so the index-shard psum stays on ICI")
+                "so the index-shard psum stays inside one host")
         from jax.experimental import mesh_utils
-        # TPU pods group by slice; CPU/multi-host-sim processes carry
-        # no distinct slice_index, so the process is the DCN granule
-        slices = {getattr(d, "slice_index", None) for d in jax.devices()}
-        by_process = len(slices) <= 1
+        # the process (one host) is the granule the network joins
         devices = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=(n_local // ip, ip),
             dcn_mesh_shape=(n_proc, 1),
-            process_is_granule=by_process)
+            process_is_granule=True)
         return Mesh(devices, ("dp", "ip"))
     devices = np.asarray(jax.devices()[:dp * ip]).reshape(dp, ip)
     return Mesh(devices, ("dp", "ip"))

@@ -2,7 +2,7 @@
 
 The reference scales with threads over disjoint stxxl ranges
 (WorkerThread.hpp:22-129; range splits respect trie-range boundaries,
-Compare.hpp:3263-3283).  The TPU equivalent is a 2-D device mesh:
+Compare.hpp:3263-3283).  The device equivalent is a 2-D device mesh:
 
   axis "ip" (index parallel):  the sorted index is split into
       contiguous shards ALIGNED TO 6-LETTER-PREFIX BOUNDARIES (so a
@@ -13,7 +13,8 @@ Compare.hpp:3263-3283).  The TPU equivalent is a 2-D device mesh:
 Each device matches its query shard against its index shard with the
 single-chip kernel (match/device.py); a `psum` over "ip" merges the
 partial score/count tensors, leaving results sharded over "dp".
-All communication is XLA collectives over ICI; no host round-trips.
+All communication is XLA collectives (NCCL over NVLink on one
+host); no host round-trips.
 """
 
 from __future__ import annotations
@@ -182,7 +183,7 @@ def make_sharded_classifier(si: ShardedIndex, mesh: Mesh,
             q[0], rid[0], valid[0],
             si.num_steps, si.sub_steps, si.min_k, si.max_k, si.highest_k,
             si.num_species, num_reads_per_dp, cap)
-        # merge partial results across index shards (ICI collective)
+        # merge partial results across index shards (one collective)
         scores = jax.lax.psum(scores, "ip")
         call = jax.lax.psum(call, "ip")
         cuniq = jax.lax.psum(cuniq, "ip")

@@ -17,7 +17,8 @@ device:
       lives whole inside one shard, so per-shard turbo tables (router,
       rowdat Tpack, grp2, d_tax4) are exact without any cross-shard
       reconciliation.  ip exists for MEMORY: an index too big for one
-      chip's HBM shards across ip and each chip searches its slice.
+      card's device memory shards across ip and each card searches
+      its slice.
 
 Per step, inside one shard_map:
   1. every (dp, ip) device windows its dp-slice of the byte matrix and
@@ -164,8 +165,19 @@ def make_turbo_mesh_step(st: ShardedTurboTables, mesh: Mesh):
 
     packed row d lays out reads [d*Rdp, (d+1)*Rdp) exactly like
     turbo.fused_turbo_acc's single-chip packing (hc | flags | CSR |
-    [total, nflagged]).  Device tables are placed sharded over "ip"
-    once; the jitted step is cached per batch geometry."""
+    [total, nflagged])."""
+    jitted, tables = turbo_mesh_program(st, mesh)
+    return functools.partial(jitted, *tables)
+
+
+def turbo_mesh_program(st: ShardedTurboTables, mesh: Mesh):
+    """-> (jitted, tables): the mesh step is jitted(*tables, byte_mat,
+    lut, acc_ca, acc_cu, **static).  Device tables are placed sharded
+    over "ip" once and passed to the jitted program as ARGUMENTS:
+    tables a jitted function closes over become constants baked into
+    each compiled program (hundreds of MB at bench scale, minutes of
+    compile per batch geometry).  The program is cached per batch
+    geometry."""
     dp = mesh.shape["dp"]
     ip = mesh.shape["ip"]
     assert st.ip == ip
@@ -184,8 +196,8 @@ def make_turbo_mesh_step(st: ShardedTurboTables, mesh: Mesh):
         static_argnames=("rows_pad", "protein", "one_frame", "lpr", "w",
                          "csr_cap", "unique"),
         donate_argnames=("acc_ca", "acc_cu"))
-    def step(byte_mat, lut, acc_ca, acc_cu, *, rows_pad, protein,
-             one_frame, lpr, w, csr_cap, unique=False):
+    def jitted(tabs, wts, mks, byte_mat, lut, acc_ca, acc_cu, *, rows_pad,
+               protein, one_frame, lpr, w, csr_cap, unique=False):
         from ..core.encode import dna_to_aa_codes, encode_windows
 
         R_local = rows_pad // dp
@@ -286,7 +298,7 @@ def make_turbo_mesh_step(st: ShardedTurboTables, mesh: Mesh):
             check_vma=False,
         )(*tabs, wts, mks, byte_mat, lut, acc_ca, acc_cu)
 
-    return step
+    return jitted, (tabs, wts, mks)
 
 
 class MeshTurboDispatch:

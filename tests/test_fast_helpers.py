@@ -152,3 +152,69 @@ def test_multi_packed_profiles_agree(tmp_path, monkeypatch):
                     assert vp == vs
                     continue
                 np.testing.assert_allclose(fp, fs, rtol=2e-4, atol=2e-3)
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def _budget(monkeypatch, dev, memory_avail=10 << 30):
+    import kasa_tpu.match.fast as fast_mod
+    from kasa_tpu.config import Config
+    monkeypatch.delenv("KASA_DEVICE_BUDGET", raising=False)
+    monkeypatch.setattr(fast_mod.jax, "local_devices", lambda: [dev])
+    cfg = Config()
+    cfg.memory_avail = memory_avail
+    return fast_mod.device_table_budget(cfg)
+
+
+def test_device_budget_from_memory_stats(monkeypatch):
+    dev = _FakeDevice("gpu", {"bytes_limit": 60 << 30,
+                              "bytes_in_use": 4 << 30})
+    assert _budget(monkeypatch, dev) == int((56 << 30) * 0.85)
+
+
+def test_device_budget_without_stats_is_an_error(monkeypatch):
+    import pytest
+    for stats in (None, {}):
+        with pytest.raises(RuntimeError, match="memory_stats"):
+            _budget(monkeypatch, _FakeDevice("gpu", stats))
+
+
+def test_device_budget_cpu_uses_memory_flag(monkeypatch):
+    dev = _FakeDevice("cpu", {"bytes_limit": 1 << 40})
+    assert _budget(monkeypatch, dev, memory_avail=5 << 30) \
+        == int((5 << 30) * 0.8)
+    monkeypatch.setenv("KASA_DEVICE_BUDGET", "12345")
+    import kasa_tpu.match.fast as fast_mod
+    from kasa_tpu.config import Config
+    assert fast_mod.device_table_budget(Config()) == 12345
+
+
+def test_compile_cache_obeys_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it and the code sets
+    no other directory."""
+    import jax
+    from kasa_tpu.utils import compcache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compcache.enable_compilation_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    import pathlib
+    import jax
+    from kasa_tpu.utils import compcache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    assert compcache.enable_compilation_cache() == str(repo / ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == str(repo / ".jax_cache")
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.2
+    assert jax.config.jax_persistent_cache_min_entry_size_bytes == 0

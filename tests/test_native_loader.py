@@ -2,7 +2,9 @@
 Python parsers on every fixture (plain + gz, fasta + fastq), and the
 native sanitize must match the LUT-based one."""
 
+import os
 import pathlib
+import platform
 
 import numpy as np
 import pytest
@@ -50,3 +52,30 @@ def test_native_sanitize(lib):
         np.testing.assert_array_equal(got, expect)
     withspace = np.frombuffer(b"AC GT\tT", np.uint8).copy()
     assert sanitize_inplace(withspace, False) == 2
+
+
+def test_build_key_follows_sources_and_cpu(tmp_path):
+    """The library's file name is keyed on the sources, the flags and the
+    CPU, so an edited source or another host never loads a stale or
+    foreign build."""
+    from kasa_tpu import native
+    a, b = tmp_path / "a.cpp", tmp_path / "b.cpp"
+    a.write_text("int f() { return 1; }\n")
+    b.write_text("int g() { return 2; }\n")
+    srcs = [str(a), str(b)]
+    k0 = native.build_key(srcs, cpu="cpu0")
+    assert k0 == native.build_key(srcs, cpu="cpu0")
+    b.write_text("int g() { return 3; }\n")
+    k1 = native.build_key(srcs, cpu="cpu0")
+    assert k1 != k0
+    assert native.build_key(srcs, cpu="cpu1") != k1
+
+
+def test_library_lives_in_keyed_build_dir():
+    from kasa_tpu import native
+    path = native.lib_path()
+    assert os.path.dirname(path) == native.BUILD_DIR
+    assert native.build_key() in os.path.basename(path)
+    assert native.host_cpu().startswith(platform.machine())
+    if native.get_lib() is not None:
+        assert os.path.exists(path) and native.lib_error() is None

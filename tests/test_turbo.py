@@ -281,7 +281,7 @@ def test_turbo_expansion_budget_drop(monkeypatch):
     import kasa_tpu.match.turbo as turbo_mod
 
     monkeypatch.setattr(turbo_mod, "EXP_BUDGET", 64)
-    # keep the hot-set MXU path from absorbing the planted groups
+    # keep the hot-set matrix-product path from absorbing the planted groups
     monkeypatch.setattr(turbo_mod, "HOT_SETS", 1)
     turbo_mod.turbo_classify._clear_cache()
     try:
@@ -363,3 +363,40 @@ def test_sparse_fold_matches_dense(monkeypatch):
     np.testing.assert_array_equal(dense[5], sparse[5])
     np.testing.assert_array_equal(dense[6], sparse[6])
     assert dense[2].sum() > 0
+
+
+@pytest.mark.parametrize("num_files", [1, 2], ids=["acc", "files"])
+def test_turbo_products_state_highest_precision(num_files):
+    """Every float32 product of the lowered turbo program asks for
+    HIGHEST precision: a GPU may otherwise run it in TF32 (~3 decimal
+    digits), outside the score tolerance."""
+    import jax.numpy as jnp
+    from kasa_tpu.core.encode import build_codon_code_lut
+    from kasa_tpu.match.turbo import TurboTables, fused_turbo_files
+    limbs, taxids, _hot = _index_with_tiers(n=3000, heavy_ts=(2, 3, 5))
+    tt = TurboTables.build_from_arrays(limbs, taxids.astype(np.int32), HK,
+                                       MIN_K, MAX_K, S)
+    assert tt.hotmask.shape[0] > 1, "the hot tier's products must exist"
+    R, maxlen = 8, 96
+    mat = jnp.zeros((R, maxlen), jnp.uint8)
+    lut = jnp.asarray(build_codon_code_lut().astype(np.int32))
+    fo = jnp.zeros((R,), jnp.int32)
+    text = fused_turbo_files.lower(
+        tt.keys2, tt.rowdat, tt.router, tt.sub2, tt.grp2, tt.d_tax4,
+        tt.weights, tt.masks2, tt.hotmask, tt.t_hot, mat, lut, fo,
+        tt.num_steps, MIN_K, MAX_K, HK, S, R, False, False, 1,
+        maxlen - 3 * HK + 1, 4 * R, num_files=num_files).as_text()
+    dots = [ln for ln in text.splitlines() if "dot_general" in ln]
+    assert len(dots) >= 3
+    for ln in dots:
+        assert "precision = [HIGHEST, HIGHEST]" in ln, ln
+
+
+@pytest.mark.gpu
+def test_turbo_matches_oracle_on_gpu(gpu):
+    """The tier and overflow oracle check on the card, where float32
+    products could run in TF32 and scatters and sorts order ties
+    differently from the CPU."""
+    import jax
+    assert jax.default_backend() == "gpu"
+    test_turbo_matches_oracle_with_tiers_and_overflow()

@@ -194,3 +194,40 @@ def test_over_budget_index_shards_over_ip(tmp_path, monkeypatch,
         ha = {h["tax ID"] for h in ra["Top hits"] + ra["Further hits"]}
         hb = {h["tax ID"] for h in rb["Top hits"] + rb["Further hits"]}
         assert ha == hb, ra["Read number"]
+
+
+def test_mesh_step_takes_tables_as_arguments(tmp_path):
+    """The jitted mesh step receives the sharded tables as arguments:
+    tables it closed over would be baked into every compiled program as
+    constants (the 24-bit router alone is 134 MB per shard), which made
+    each mesh compile take minutes at bench scale."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from kasa_tpu.core.encode import build_codon_code_lut
+    from kasa_tpu.index import artifacts
+    from kasa_tpu.match.pipeline import load_content_for_identify
+    from kasa_tpu.match.join import map_tax_rows
+    from kasa_tpu.parallel.turbo_mesh import (ShardedTurboTables,
+                                              turbo_mesh_program)
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 virtual devices")
+    idx, _fq = synth_corpus(tmp_path)
+    limbs, taxids, _hk, _t = artifacts.read_index(idx)
+    content = load_content_for_identify(idx + "_content.txt")
+    S = content.num_species
+    st = ShardedTurboTables.build(
+        limbs, map_tax_rows(taxids, content.tax_to_idx), 12, 7, 12, S, 2)
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("dp", "ip"))
+    jitted, tables = turbo_mesh_program(st, mesh)
+    rows, maxlen = 64, 128
+    acc = jnp.zeros((2, 6, S), jnp.float32)
+    text = jitted.lower(
+        *tables, jnp.zeros((rows, maxlen), jnp.uint8),
+        jnp.asarray(build_codon_code_lut().astype(np.int32)), acc,
+        acc.astype(jnp.int32), rows_pad=rows, protein=False,
+        one_frame=False, lpr=1, w=maxlen - 35, csr_cap=4 * rows // 2
+    ).as_text()
+    table_bytes = sum(int(a.nbytes) for a in jax.tree.leaves(tables))
+    assert table_bytes > 100 << 20
+    assert len(text) < table_bytes // 100, len(text)

@@ -4,7 +4,7 @@ classifier (parallel/mesh.py) -- the tradeoff docs/parallel.md
 promises numbers for (VERDICT r2 #8).
 
 Runs on the 8-virtual-device CPU mesh (JAX_PLATFORMS=cpu), so the
-numbers are RELATIVE (collective and kernel cost ratios), not TPU
+numbers are RELATIVE (collective and kernel cost ratios), not device
 wall-clock.  Prints a markdown table row per (dp, ip) shape.
 """
 

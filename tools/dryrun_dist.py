@@ -3,8 +3,8 @@
 
 Launches N_PROC worker processes on the CPU backend (gloo collectives),
 each owning N_LOCAL virtual devices, builds the hybrid identify mesh
-(parallel/dist.py: "dp" spans processes over DCN, "ip" stays inside
-each process's ICI domain), runs the mesh-sharded TURBO classify step
+(parallel/dist.py: "dp" spans processes, "ip" stays inside each
+process), runs the mesh-sharded TURBO classify step
 over a synthetic skewed corpus, and asserts the dp-spanning result
 equals a single-process run bit-for-bit on the integer count tensors.
 

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Generate golden outputs from the reference kASA binary (prebuilt
 # binaries/kASA_linux from the reference repo, copied to .golden_kASA).
-# These are the parity targets for the TPU framework's tests.
+# These are the parity targets for this framework's tests.
 set -e
 cd "$(dirname "$0")/.."
 BIN=./.golden_kASA
